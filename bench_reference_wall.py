@@ -1,17 +1,16 @@
 """Time the REAL reference stage binaries vs hinge_tpu's stages on
 identical inputs (BASELINE.md row 2: "beat reference CPU pipeline").
 
-Same 4.6Mb/30x seed-0 workload as the recorded TPU e2e; both sides consume
+4.6Mb/30x seed-0 workload (the E. coli demo shape); both sides consume
 the same X.db/X.las (exact simulator overlaps), the reference binaries
 built by refbuild/build.sh (the actual Reads_filter/get_maximal_reads/
 hinging/draft_assembly/consensus from /root/reference, spdlog+Boost shims
 only).  hinge_tpu stages run in child interpreters on the CPU backend so
-the comparison is host-for-host (the TPU e2e number lives in the previous
-bench_recorded.json entry).  The reference's clip/draft-path are py2-only
+the comparison is host-for-host.  The reference's clip/draft-path are py2-only
 and its overlapper is external DALIGNER, so both sides share hinge_tpu's
 edges.list and mapper .las exactly as tests/test_reference_parity.py does.
 
-Appends a "reference_stage_wall" entry to docs/bench_recorded.json.
+Prints one "RESULT {json}" line with the per-stage walls of both sides.
 
   python bench_reference_wall.py [genome_len] [coverage]
 """
@@ -140,11 +139,6 @@ entry = {
     "notes": ("identical X.db/X.las inputs; reference binaries from "
               "refbuild/build.sh; clip/draft-path (py2-only upstream) and "
               "the mapper las are hinge_tpu's on both sides; hinge_tpu side "
-              "forced to the CPU backend (host-for-host) — the TPU e2e wall "
-              "is the sibling e2e_assemble entry"),
+              "forced to the CPU backend (host-for-host)"),
 }
 print("RESULT " + json.dumps(entry), flush=True)
-path = os.path.join(_HERE, "docs", "bench_recorded.json")
-rec = json.load(open(path)) if os.path.exists(path) else []
-rec.append(entry)
-json.dump(rec, open(path, "w"), indent=1)

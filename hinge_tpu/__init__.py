@@ -1,8 +1,8 @@
-"""hinge_tpu — a TPU-native long-read OLC assembler with HINGE's capabilities.
+"""hinge_tpu — a JAX long-read OLC assembler with HINGE's capabilities.
 
 A from-scratch re-design of the HINGE assembly pipeline
 (filter -> maximal -> layout -> clip -> draft-path -> draft -> consensus -> gfa)
-for JAX/XLA/Pallas on TPU:
+for JAX/XLA on an accelerator (an NVIDIA GPU; tests run on the CPU backend):
 
 * overlap records live in a columnar struct-of-arrays (`hinge_tpu.data.overlaps`)
   instead of per-record C++ objects,

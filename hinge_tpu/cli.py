@@ -26,31 +26,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 
-def _enable_compile_cache():
-    """Persistent XLA compile cache for CLI stage processes.
-
-    Every `hinge <stage>` invocation is a fresh interpreter; without a
-    cache each pays ~3-5s re-compiling the same device kernels (the
-    reference binaries pay 0).  Cache lives in ~/.cache/hinge_tpu/jax
-    (HINGE_JAX_CACHE overrides the path, HINGE_JAX_CACHE=0 disables).
-    Safe to call before or after backend selection; failures are ignored
-    (first-compile behavior is just restored)."""
-    loc = os.environ.get("HINGE_JAX_CACHE", "")
-    if loc == "0":
-        return
-    if not loc:
-        loc = os.path.join(os.path.expanduser("~"), ".cache", "hinge_tpu", "jax")
-    try:
-        os.makedirs(loc, exist_ok=True)
-        import jax
-
-        jax.config.update("jax_compilation_cache_dir", loc)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
-        jax.config.update("jax_persistent_cache_enable_xla_caches", "all")
-    except Exception:
-        pass
-
-
 def _load_reads(args) -> "ReadStore":
     from hinge_tpu.io.dazz_db import read_db
     from hinge_tpu.io.fasta import read_fasta
@@ -176,12 +151,11 @@ def cmd_clip(args, nanopore=False):
 
 
 def cmd_draft_path(args):
-    import networkx as nx
-
+    from hinge_tpu.graph.digraph import read_graphml
     from hinge_tpu.stages.draft_path import run_draft_path
 
     rs = _load_reads(args)
-    g = nx.read_graphml(args.graphml)
+    g = read_graphml(args.graphml)
     out_edges = os.path.join(args.filedir, args.filename + ".edges.list")
     out_gml = os.path.join(args.filedir, args.filename + "_draft.graphml")
     lines, _ = run_draft_path(g, rs.length, out_edges_list=out_edges, out_graphml=out_gml)
@@ -272,27 +246,26 @@ def cmd_gfa(args):
 
 
 def cmd_condense(args):
-    import networkx as nx
-
     from hinge_tpu.graph.condense import condense_graph
+    from hinge_tpu.graph.digraph import read_graphml, write_graphml
 
-    g = nx.read_graphml(args.graphml)
+    g = read_graphml(args.graphml)
     h = condense_graph(g)
     out = args.out or (args.graphml.replace(".graphml", "") + ".condensed.graphml")
-    nx.write_graphml(h, out)
+    write_graphml(h, out)
     print(f"[condense] {len(g)} -> {len(h)} nodes, {out}")
 
 
 def cmd_visualize(args):
-    import networkx as nx
+    from hinge_tpu.graph.digraph import DiGraph, write_graphml
 
-    G = nx.DiGraph()
+    G = DiGraph()
     with open(args.edges) as f:
         for line in f:
             t = line.split()
             if len(t) >= 2:
                 G.add_edge(t[0], t[1])
-    nx.write_graphml(G, args.out)
+    write_graphml(G, args.out)
     print(f"[visualize] -> {args.out}")
 
 
@@ -366,11 +339,10 @@ def cmd_n50(args):
 
 def cmd_unitig(args):
     """Unitig path extraction (scripts/unitig.py)."""
-    import networkx as nx
-
     from hinge_tpu.graph.analysis import write_unitig_edges
+    from hinge_tpu.graph.digraph import read_graphml
 
-    g = nx.read_graphml(args.graphml)
+    g = read_graphml(args.graphml)
     out = args.out or (args.graphml.split(".")[0] + ".edges.list")
     n = write_unitig_edges(g, out)
     print(f"[unitig] {n} unitigs -> {out}")
@@ -435,10 +407,11 @@ def cmd_hgraph(args):
 def cmd_connected(args):
     """Iterated in-degree-0 trim of a `u->v` edge list (scripts/connected.py)."""
     from hinge_tpu.graph.analysis import connected_trim
+    from hinge_tpu.graph.digraph import weakly_connected_components
 
     g = connected_trim(args.edges, args.dfs_out, out_graphml=args.out,
                        n_iter=args.iters)
-    comps = [len(c) for c in __import__("networkx").weakly_connected_components(g)]
+    comps = [len(c) for c in weakly_connected_components(g)]
     print(f"[connected] {g.number_of_nodes()} nodes "
           f"{g.number_of_edges()} edges, components {sorted(comps, reverse=True)}")
 
@@ -501,7 +474,9 @@ def cmd_sweep(args):
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    _enable_compile_cache()
+    from hinge_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="hinge-tpu", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
 

@@ -4,7 +4,7 @@ The reference materializes one heap-allocated ``LOverlap`` object per `.las`
 record and builds hash-map pileups (`filter.cpp:522-583`).  Here overlap
 records are a struct-of-arrays of int32 columns, sorted by A-read id (the
 natural `.las` order), with a CSR ``row_ptr`` over A-ids replacing the
-``idx_pileup`` hash maps.  This is the layout every TPU kernel consumes:
+``idx_pileup`` hash maps.  This is the layout every device kernel consumes:
 dense, static-shaped, shardable by contiguous A-id ranges (the reference's
 ``--mlas`` partitioning, `filter.cpp:35-63`).
 

@@ -18,7 +18,9 @@ from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
-import networkx as nx
+from hinge_tpu.graph.digraph import (
+    DiGraph, dfs_edges, number_strongly_connected_components, number_weakly_connected_components, read_graphml, topological_sort, weakly_connected_components, write_graphml,
+)
 
 
 def comp_n50(contig_lengths: Sequence[int]) -> float:
@@ -44,7 +46,7 @@ def comp_n50(contig_lengths: Sequence[int]) -> float:
     return 0.5 * (min_n50 + max_n50)
 
 
-def _node_len(g: nx.DiGraph, u) -> int:
+def _node_len(g: DiGraph, u) -> int:
     """Node contig length: `segment` string (the reference NCTC drafts),
     `length` attr, or our draft-path cut span."""
     d = g.nodes[u]
@@ -63,10 +65,10 @@ def _node_len(g: nx.DiGraph, u) -> int:
 def n50_from_draft_graphml(path: str) -> Dict[str, float]:
     """Contig + component N50 of a draft graphml
     (compute_n50_from_draft.py:60-90)."""
-    g = nx.read_graphml(path)
+    g = read_graphml(path)
     contig_lengths = [_node_len(g, u) for u in g.nodes()]
     component_lengths = set()
-    for comp in nx.weakly_connected_components(g):
+    for comp in weakly_connected_components(g):
         # set() so a contig and its reverse complement count once
         component_lengths.add(sum({_node_len(g, u) for u in comp}))
     return {
@@ -91,7 +93,7 @@ def n50_from_fasta(path: str) -> Dict[str, float]:
     }
 
 
-def unitigs(g: nx.DiGraph) -> List[List[str]]:
+def unitigs(g: DiGraph) -> List[List[str]]:
     """Maximal unbranched paths (unitig.py:36-76): walk from every branch
     vertex (in/out degree != 1) through degree-1 chains; remaining nodes
     form simple cycles, emitted as closed paths."""
@@ -127,7 +129,7 @@ def unitigs(g: nx.DiGraph) -> List[List[str]]:
     return paths
 
 
-def write_unitig_edges(g: nx.DiGraph, out_path: str) -> int:
+def write_unitig_edges(g: DiGraph, out_path: str) -> int:
     """`>Unitig<i>` + per-edge raw match coordinates (unitig.py:103-117)."""
     paths = unitigs(g)
     with open(out_path, "w") as f:
@@ -154,10 +156,10 @@ def write_unitig_edges(g: nx.DiGraph, out_path: str) -> int:
     return len(paths)
 
 
-def longest_path(g: nx.DiGraph) -> List[str]:
+def longest_path(g: DiGraph) -> List[str]:
     """Longest path in a DAG by topological DP (longest_path.py:7-21)."""
     dist: Dict[str, tuple] = {}
-    for node in nx.topological_sort(g):
+    for node in topological_sort(g):
         pairs = [(dist[v][0] + 1, v) for v in g.pred[node]]
         dist[node] = max(pairs) if pairs else (0, node)
     node, (length, _) = max(dist.items(), key=lambda x: x[1])
@@ -184,7 +186,7 @@ def create_hgraph(
     carries aln_start/aln_end = min/max of the read's first mapping span
     (0/0 when unmapped).  Returns (graph, n_weakly_cc, n_strongly_cc).
     """
-    g = nx.DiGraph()
+    g = DiGraph()
     with open(hgraph_path) as f:
         for line in f:
             cols = line.split()
@@ -208,11 +210,11 @@ def create_hgraph(
             g.add_edge(u, v)
     if out_graphml is None:
         out_graphml = hgraph_path.split(".")[0] + "_hgraph.graphml"
-    nx.write_graphml(g, out_graphml)
+    write_graphml(g, out_graphml)
     return (
         g,
-        nx.number_weakly_connected_components(g),
-        nx.number_strongly_connected_components(g),
+        number_weakly_connected_components(g),
+        number_strongly_connected_components(g),
     )
 
 
@@ -221,7 +223,7 @@ def connected_trim(
     out_dfs_path: str,
     out_graphml: str | None = None,
     n_iter: int = 15,
-) -> nx.DiGraph:
+) -> DiGraph:
     """Iterated in-degree-0 trimming of an `u->v` edge-list graph.
 
     Mirrors scripts/connected.py:27-73: parse "u->v" lines, run `n_iter`
@@ -231,7 +233,7 @@ def connected_trim(
     round), write the trimmed graph to graphml and its DFS edge sequence to
     `out_dfs_path`.  Returns the trimmed graph.
     """
-    g = nx.DiGraph()
+    g = DiGraph()
     with open(edges_path) as f:
         for line in f:
             line = line.strip()
@@ -245,8 +247,8 @@ def connected_trim(
                 g.remove_node(node)
     if out_graphml is None:
         out_graphml = edges_path.split(".")[0] + ".graphml"
-    nx.write_graphml(g, out_graphml)
+    write_graphml(g, out_graphml)
     with open(out_dfs_path, "w") as f:
-        for edge in nx.dfs_edges(g):
+        for edge in dfs_edges(g):
             f.write("{} {}\n".format(edge[0], edge[1]))
     return g

@@ -10,10 +10,10 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-import networkx as nx
+from hinge_tpu.graph.digraph import DiGraph, MultiDiGraph, write_graphml
 
 
-def _merge_path(g: nx.DiGraph, in_node, node, out_node):
+def _merge_path(g: DiGraph, in_node, node, out_node):
     node_id = g.graph["aval"]
     g.graph["aval"] += 1
     g.add_node(
@@ -30,7 +30,7 @@ def _merge_path(g: nx.DiGraph, in_node, node, out_node):
     g.remove_node(out_node)
 
 
-def merge_simple_path(g: nx.DiGraph):
+def merge_simple_path(g: DiGraph):
     for node in list(g.nodes()):
         if not g.has_node(node):
             continue
@@ -42,7 +42,7 @@ def merge_simple_path(g: nx.DiGraph):
                     _merge_path(g, in_node, node, out_node)
 
 
-def condense_graph(G: nx.DiGraph, n_trim_iter: int = 5, n_merge_iter: int = 5) -> nx.DiGraph:
+def condense_graph(G: DiGraph, n_trim_iter: int = 5, n_merge_iter: int = 5) -> DiGraph:
     """condense_graph.py:run — trim in-degree-0 nodes, merge simple paths."""
     g = G.copy()
     for node in g.nodes():
@@ -58,7 +58,7 @@ def condense_graph(G: nx.DiGraph, n_trim_iter: int = 5, n_merge_iter: int = 5) -
     return g
 
 
-def _merge_path_ov(g: nx.MultiDiGraph, in_node, node, out_node):
+def _merge_path_ov(g: MultiDiGraph, in_node, node, out_node):
     """Overlap-aware 3-node merge
     (condense_graph_create_gfa_compute_n50.py:29-70)."""
     node_id = g.graph["aval"]
@@ -80,7 +80,7 @@ def _merge_path_ov(g: nx.MultiDiGraph, in_node, node, out_node):
     g.remove_node(out_node)
 
 
-def merge_simple_path_ov(g: nx.MultiDiGraph):
+def merge_simple_path_ov(g: MultiDiGraph):
     """Strand-compatible simple-path merge
     (condense_graph_create_gfa_compute_n50.py:16-27): aln_strand 5 is the
     unmapped wildcard that merges with anything."""
@@ -116,7 +116,7 @@ def condense_gfa_n50(
     from hinge_tpu.graph.analysis import comp_n50
 
     out_prefix = out_prefix or edges_path.split(".")[0]
-    g = nx.MultiDiGraph()
+    g = MultiDiGraph()
     with open(edges_path) as f:
         for line in f:
             l = line.strip().split()
@@ -140,7 +140,7 @@ def condense_gfa_n50(
     g.graph["aval"] = 1000000000
     for _ in range(5):
         merge_simple_path_ov(g)
-    nx.write_graphml(g, out_prefix + ".condensed.graphml")
+    write_graphml(g, out_prefix + ".condensed.graphml")
     with open(out_prefix + ".bandage", "w") as fout:
         for cur_node in g.nodes():
             node_str = "A" * g.nodes[cur_node]["length"] + "\n"

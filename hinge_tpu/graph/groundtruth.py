@@ -17,8 +17,9 @@ from __future__ import annotations
 import json
 from typing import Dict, List, Optional, Set
 
-import networkx as nx
 import numpy as np
+
+from hinge_tpu.graph.digraph import DiGraph
 
 # matplotlib color-name RGBs used by the reference (pruning:986)
 _COLOUR_LIST = [
@@ -48,8 +49,8 @@ def run_mapping(reads_store, reference_store, out_json: Optional[str] = None) ->
 
 
 def add_groundtruth(
-    g: nx.DiGraph, mapping: Dict, in_hinges: Set[str], out_hinges: Set[str]
-) -> nx.DiGraph:
+    g: DiGraph, mapping: Dict, in_hinges: Set[str], out_hinges: Set[str]
+) -> DiGraph:
     """pruning_and_clipping.py:894-1018 — chr/aln coords/normpos/color per
     node + false_positive flags per edge."""
     chr_length: Dict[int, int] = {}

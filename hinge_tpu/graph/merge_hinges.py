@@ -34,7 +34,9 @@ import json
 import random
 from typing import Dict, Iterable, List, Optional, Set, Tuple
 
-import networkx as nx
+from hinge_tpu.graph.digraph import (
+    DiGraph, weakly_connected_components, write_graphml,
+)
 
 from hinge_tpu.utils.log import get_logger
 
@@ -47,7 +49,7 @@ def _pred(G, n) -> List[str]:
     return list(G.predecessors(n))
 
 
-def dead_end_clipping(G: nx.DiGraph, threshold: int) -> nx.DiGraph:
+def dead_end_clipping(G: DiGraph, threshold: int) -> DiGraph:
     """Single-strand dead-end clip (merge_hinges.py:11-44).
 
     Unlike the symmetric clip variant this removes a short in/out spur
@@ -97,8 +99,8 @@ def dead_end_clipping(G: nx.DiGraph, threshold: int) -> nx.DiGraph:
 
 
 def z_clipping(
-    G: nx.DiGraph, threshold: int, in_hinges: Set[str], out_hinges: Set[str]
-) -> nx.DiGraph:
+    G: DiGraph, threshold: int, in_hinges: Set[str], out_hinges: Set[str]
+) -> DiGraph:
     """Single-strand Z-clip (merge_hinges.py:50-107)."""
     H = G.copy()
     start_nodes = [x for x in H.nodes() if H.out_degree(x) > 1 and x not in out_hinges]
@@ -155,13 +157,13 @@ def z_clipping(
     return H
 
 
-def merge_path(g: nx.DiGraph, in_node, node, out_node):
+def merge_path(g: DiGraph, in_node, node, out_node):
     """(merge_hinges.py:113-117)"""
     g.add_edge(in_node, out_node, hinge_edge=-1, false_positive=0)
     g.remove_node(node)
 
 
-def merge_a_to_b(g: nx.DiGraph, node_a, node_b):
+def merge_a_to_b(g: DiGraph, node_a, node_b):
     """Redirect every edge of node_a onto node_b, drop node_a
     (merge_hinges.py:120-133)."""
     if node_a not in g.nodes() or node_b not in g.nodes():
@@ -176,8 +178,8 @@ def merge_a_to_b(g: nx.DiGraph, node_a, node_b):
 
 
 def random_condensation(
-    G: nx.DiGraph, n_nodes: int, seed: Optional[int] = 0
-) -> nx.DiGraph:
+    G: DiGraph, n_nodes: int, seed: Optional[int] = 0
+) -> DiGraph:
     """Sparsify to ~n_nodes by merging interior nodes of simple paths whose
     incident edges are not false positives (merge_hinges.py:136-172; seeded
     here, viz-only output)."""
@@ -211,8 +213,8 @@ def random_condensation(
 
 
 def add_groundtruth(
-    g: nx.DiGraph, mapping: Dict, in_hinges: Set[str], out_hinges: Set[str]
-) -> nx.DiGraph:
+    g: DiGraph, mapping: Dict, in_hinges: Set[str], out_hinges: Set[str]
+) -> DiGraph:
     """aln_start/aln_end + hinge flag per node, false_positive per edge
     (merge_hinges.py:176-233). Overlapping ground-truth intervals between
     edge endpoints clear the flag."""
@@ -261,7 +263,7 @@ def build_hinge_mapping(
     hinge_list_lines: Iterable[str],
     mapping: Dict,
     out_graphml: Optional[str] = None,
-) -> Tuple[nx.DiGraph, Dict[str, str]]:
+) -> Tuple[DiGraph, Dict[str, str]]:
     """Double-stranded hinge graph + canonical-sink mapping.
 
     Builds the (read,strand,hingepos) graph from X.hgraph exactly as
@@ -281,7 +283,7 @@ def build_hinge_mapping(
         hinge_nodes.add(t[0] + "_0_" + t[1])
         hinge_nodes.add(t[0] + "_1_" + t[1])
 
-    g = nx.DiGraph()
+    g = DiGraph()
     for ln in hgraph_lines:
         t = ln.split()
         if len(t) < 6:
@@ -325,7 +327,7 @@ def build_hinge_mapping(
 
     order = {n: i for i, n in enumerate(g.nodes())}
     hinge_mapping: Dict[str, str] = {}
-    for c in nx.weakly_connected_components(g):
+    for c in weakly_connected_components(g):
         nodes = sorted(c, key=order.__getitem__)
         if len(c) > 10:
             component_sink = None
@@ -346,18 +348,18 @@ def build_hinge_mapping(
                 g.nodes[node]["active"] = -1
 
     if out_graphml is not None:
-        nx.write_graphml(g, out_graphml)
+        write_graphml(g, out_graphml)
     return g, hinge_mapping
 
 
 def build_merged_graph(
     edges_lines: Iterable[str], hinge_mapping: Dict[str, str]
-) -> nx.DiGraph:
+) -> DiGraph:
     """String graph from X.edges.hinges2 with hinged endpoints collapsed to
     their component sink (merge_hinges.py:516-553, the live merging==1
     branch)."""
     log = get_logger()
-    G = nx.DiGraph()
+    G = DiGraph()
     to_be_merged: List[Tuple[str, str]] = []
     for ln in edges_lines:
         t = ln.split()
@@ -399,7 +401,7 @@ def merge_hinges_run(
     gt_file: Optional[str] = None,
     prefix: Optional[str] = None,
     seed: Optional[int] = 0,
-) -> Dict[str, nx.DiGraph]:
+) -> Dict[str, DiGraph]:
     """Full merge_hinges flow (merge_hinges.py:240-595): hinge mapping from
     the hinge graph, merged string graph, ground-truth annotation, then
     G0_merged / G0s_merged (condense 3500) / G1_merged (dead-end 10 +
@@ -431,14 +433,14 @@ def merge_hinges_run(
     add_groundtruth(G, mapping, in_hinges, out_hinges)
 
     G0 = G.copy()
-    nx.write_graphml(G0, prefix + ".G0_merged.graphml")
+    write_graphml(G0, prefix + ".G0_merged.graphml")
     G0s = random_condensation(G0, 3500, seed=seed)
-    nx.write_graphml(G0s, prefix + ".G0s_merged.graphml")
+    write_graphml(G0s, prefix + ".G0s_merged.graphml")
 
     G1 = dead_end_clipping(G0, 10)
     G1 = z_clipping(G1, 5, in_hinges, out_hinges)
-    nx.write_graphml(G1, prefix + ".G1_merged.graphml")
+    write_graphml(G1, prefix + ".G1_merged.graphml")
 
     Gs = random_condensation(G1, 2500, seed=seed)
-    nx.write_graphml(Gs, prefix + ".Gs_merged.graphml")
+    write_graphml(Gs, prefix + ".Gs_merged.graphml")
     return {"G0": G0, "G0s": G0s, "G1": G1, "Gs": Gs}

@@ -5,11 +5,11 @@ Nodes are "<read>_<strand>"; every edge is inserted together with its
 reverse-complement mirror, and every pruning operation removes both members
 of a mirror pair, keeping the graph strand-symmetric throughout.
 
-Implemented against networkx 3.x: adjacency iteration order is insertion
-order in both versions (dicts), so traversal-order-sensitive results
-(dead-end paths, z-paths, bubble arms) match the reference's.  Accessors
-are adapted (`G.edge[u][v]` -> `G.edges[u, v]`, successor lists
-materialized).
+Implemented on `graph.digraph` (networkx 3.x semantics): adjacency
+iteration order is insertion order there and in networkx 1.9 (dicts), so
+traversal-order-sensitive results (dead-end paths, z-paths, bubble arms)
+match the reference's.  Accessors are adapted (`G.edge[u][v]` ->
+`G.edges[u, v]`, successor lists materialized).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from __future__ import annotations
 import random
 from typing import Dict, Iterable, List, Optional, Set, Tuple
 
-import networkx as nx
+from hinge_tpu.graph.digraph import DiGraph, GraphError
 
 
 def rev_node(node: str) -> str:
@@ -33,10 +33,10 @@ def _pred(G, n) -> List[str]:
     return list(G.predecessors(n))
 
 
-def build_graph(edge_lines: Iterable[str]) -> Tuple[nx.DiGraph, Dict]:
+def build_graph(edge_lines: Iterable[str]) -> Tuple[DiGraph, Dict]:
     """Build the symmetric graph from X.edges.hinges lines
     (pruning_and_clipping.py:1304-1371). Returns (G, Ginfo)."""
-    G = nx.DiGraph()
+    G = DiGraph()
     Ginfo = {}
     for lines in edge_lines:
         t = lines.split()
@@ -99,7 +99,7 @@ def read_hinge_list(lines: Iterable[str]) -> Tuple[Set[str], Set[str]]:
     return in_h, out_h
 
 
-def add_annotation(g: nx.DiGraph, in_hinges: Set[str], out_hinges: Set[str]):
+def add_annotation(g: DiGraph, in_hinges: Set[str], out_hinges: Set[str]):
     for node in g.nodes():
         if node in in_hinges:
             g.nodes[node]["hinge"] = 1
@@ -110,7 +110,7 @@ def add_annotation(g: nx.DiGraph, in_hinges: Set[str], out_hinges: Set[str]):
     return g
 
 
-def add_chimera_flags(g: nx.DiGraph, prefix: str):
+def add_chimera_flags(g: DiGraph, prefix: str):
     """Mark CFLAG from X.cov.flag (:1056-1105)."""
     for node in g.nodes():
         g.nodes[node]["CFLAG"] = False
@@ -128,7 +128,7 @@ def add_chimera_flags(g: nx.DiGraph, prefix: str):
     return g
 
 
-def mark_skipped_edges(G: nx.DiGraph, skipped_path: str):
+def mark_skipped_edges(G: DiGraph, skipped_path: str):
     """(:1021-1037)"""
     try:
         f = open(skipped_path)
@@ -146,7 +146,7 @@ def mark_skipped_edges(G: nx.DiGraph, skipped_path: str):
                 G.edges[ru, rv]["skipped"] = 1
 
 
-def dead_end_clipping_sym(G: nx.DiGraph, threshold: int) -> nx.DiGraph:
+def dead_end_clipping_sym(G: DiGraph, threshold: int) -> DiGraph:
     """(:197-262)"""
     H = G.copy()
     # node-insertion order, not set(...): H.nodes() is already unique, and
@@ -181,8 +181,8 @@ def dead_end_clipping_sym(G: nx.DiGraph, threshold: int) -> nx.DiGraph:
 
 
 def z_clipping_sym(
-    G: nx.DiGraph, threshold: int, in_hinges: Set[str], out_hinges: Set[str]
-) -> Tuple[nx.DiGraph, nx.DiGraph]:
+    G: DiGraph, threshold: int, in_hinges: Set[str], out_hinges: Set[str]
+) -> Tuple[DiGraph, DiGraph]:
     """(:331-390). Returns (H, G0) where G0 carries z annotations."""
     H = G.copy()
     G0 = G.copy()
@@ -222,7 +222,7 @@ def z_clipping_sym(
                     try:
                         H.remove_edge(e[0], e[1])
                         H.remove_edge(rev_node(e[1]), rev_node(e[0]))
-                    except nx.NetworkXError:
+                    except GraphError:
                         pass
                 for j in range(len(cur_path) - 1):
                     G0.nodes[cur_path[j][1]]["z"] = 1
@@ -230,12 +230,12 @@ def z_clipping_sym(
                     try:
                         H.remove_node(cur_path[j][1])
                         H.remove_node(rev_node(cur_path[j][1]))
-                    except nx.NetworkXError:
+                    except GraphError:
                         pass
     return H, G0
 
 
-def bubble_bursting_sym(H: nx.DiGraph, threshold: int) -> nx.DiGraph:
+def bubble_bursting_sym(H: DiGraph, threshold: int) -> DiGraph:
     """(:561-622) — in place, like the reference."""
     start_nodes = [x for x in H.nodes() if H.out_degree(x) == 2]
     for st_node in start_nodes:
@@ -287,7 +287,7 @@ def _copy_edge(g, src, dst):
     return {k: g.edges[src[0], src[1]][k] for k in _EDGE_COPY_KEYS}
 
 
-def resolve_rep(g: nx.DiGraph, rep_path: List[str], in_node: str, out_node: str):
+def resolve_rep(g: DiGraph, rep_path: List[str], in_node: str, out_node: str):
     """Duplicate a repeat path with 'B'-prefixed copies (:625-701)."""
     prefix = "B"
     g.add_edge(in_node, prefix + rep_path[0], **_copy_edge(g, (in_node, rep_path[0]), None))
@@ -316,8 +316,8 @@ def resolve_rep(g: nx.DiGraph, rep_path: List[str], in_node: str, out_node: str)
 
 
 def loop_resolution(
-    g: nx.DiGraph, max_nodes: int, flank: int, max_plasmid_length: int
-) -> nx.DiGraph:
+    g: DiGraph, max_nodes: int, flank: int, max_plasmid_length: int
+) -> DiGraph:
     """Tandem/plasmid loop resolution (:705-836) — mutates g in place."""
     starting_nodes = [x for x in g.nodes() if g.out_degree(x) == 2]
     for st_node in starting_nodes:
@@ -408,7 +408,7 @@ def loop_resolution(
     return g
 
 
-def y_pruning(G: nx.DiGraph, flank: int) -> nx.DiGraph:
+def y_pruning(G: DiGraph, flank: int) -> DiGraph:
     """Aggressive pruning of chimeric Y-fork targets (:841-888)."""
     H = G.copy()
     y_nodes = [x for x in H.nodes() if H.out_degree(x) > 1 and H.in_degree(x) == 1]
@@ -432,12 +432,12 @@ def y_pruning(G: nx.DiGraph, flank: int) -> nx.DiGraph:
                 try:
                     H.remove_edge(st_node, vert)
                     H.remove_edge(rev_node(vert), rev_node(st_node))
-                except nx.NetworkXError:
+                except GraphError:
                     pass
     return H
 
 
-def merge_path(g: nx.DiGraph, in_node: str, node: str, out_node: str):
+def merge_path(g: DiGraph, in_node: str, node: str, out_node: str):
     """(:399-410)"""
     if (
         g.edges[in_node, node]["intersection"] == 1
@@ -449,7 +449,7 @@ def merge_path(g: nx.DiGraph, in_node: str, node: str, out_node: str):
     g.remove_node(node)
 
 
-def random_condensation_sym(G: nx.DiGraph, n_nodes: int, seed: Optional[int] = 0) -> nx.DiGraph:
+def random_condensation_sym(G: DiGraph, n_nodes: int, seed: Optional[int] = 0) -> DiGraph:
     """Visualization-only sparsification (:456-498). The reference uses an
     unseeded RNG (non-deterministic output, SURVEY.md §7); we default to a
     fixed seed so runs are reproducible."""
@@ -469,12 +469,12 @@ def random_condensation_sym(G: nx.DiGraph, n_nodes: int, seed: Optional[int] = 0
                     try:
                         merge_path(g, in_node, node, out_node)
                         merge_path(g, rev_node(out_node), rev_node(node), rev_node(in_node))
-                    except (nx.NetworkXError, KeyError):
+                    except (GraphError, KeyError):
                         pass
     return g
 
 
-def connect_strands(g: nx.DiGraph) -> nx.DiGraph:
+def connect_strands(g: DiGraph) -> DiGraph:
     """(:1109-1116) — adds both strand-bridging edges per node, in place."""
     for node in list(g.nodes()):
         revn = rev_node(node)

@@ -2,7 +2,7 @@
 //
 // The reference's data-access layer is C (vendored DB.c/align.c + the
 // LAInterface facade, src/lib/LAInterface.cpp).  This library is its
-// TPU-framework equivalent: it parses overlap records into the columnar
+// equivalent here: it parses overlap records into the columnar
 // struct-of-arrays layout the JAX kernels consume (one contiguous int32
 // column per field + a flat uint16 trace array), so Python only wraps
 // pointers.  Exposed through a plain C ABI for ctypes.
@@ -898,9 +898,9 @@ int64_t emit_records(const int32_t* row, const int32_t* q, const int32_t* t,
           while (jh + 1 < n && a[jh + 1].t <= b) jh++;
           // INTEGER-EXACT interpolation (round-half-even of the exact
           // rational q[jh] + (b-t[jh])*dy/denom).  Replaces the r1-r4
-          // double evaluation so the TPU device-join path — where IEEE
-          // binary64 is not reliably available — can reproduce records
-          // bit-for-bit across backends by construction.  All quantities
+          // double evaluation so the device-join path — which computes in
+          // int32/int64 on the device, not binary64 — can reproduce
+          // records bit-for-bit across backends by construction.  All quantities
           // are non-negative (b >= t[jh] by the jh walk; q ascending).
           int64_t bv;
           if (j == 0) {

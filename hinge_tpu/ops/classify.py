@@ -5,7 +5,7 @@ Reference: `LOverlap::trim_overlap` (LAInterface.cpp:4552-4683),
 `LOverlap::GetMatchingPosition` (:4498-4546) — all scalar walks over the
 DALIGNER trace-point lattice, called once per overlap.
 
-TPU-native formulation: the per-overlap walk becomes dense ops over a *flat
+Device formulation: the per-overlap walk becomes dense ops over a *flat
 point array* covering all overlaps at once.  An overlap with P trace pairs
 has P+1 lattice points; point k has an analytic A coordinate
 

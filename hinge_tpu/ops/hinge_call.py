@@ -7,7 +7,7 @@ and whose far-side B overhang exceeds THETA, then decides bridged/unbridged
 by scanning the supporters' other ends sorted by (coordinate, overhang)
 (pairAscend/pairDescend, filter.cpp:914-1065).
 
-TPU-first shape: every (read, annotation) pair becomes one row of a padded
+Device shape: every (read, annotation) pair becomes one row of a padded
 [T, P] batch (P = padded pileup width, bucketed to powers of two).  The
 sequential early-exit scan is value-deterministic after the sort, so it
 reduces to cumulative counts + a first-trigger-index comparison:

@@ -1,12 +1,11 @@
-"""Batched anti-diagonal wavefront aligner — DW_banded.c on the TPU.
+"""Batched anti-diagonal wavefront aligner — DW_banded.c on the device.
 
 The draft ladder consensus aligns thousands of ~tspace-bp window pairs with
 the vendored FALCON banded O(ND) aligner (`src/lib/DW_banded.c:_align`).
 `ops/myers.py` transcribes it scalar-exactly and `io_native.cpp
 myers_align_batch` is its multithreaded C batch form; THIS module is the
-TPU-native form: the d-loop stays sequential (it is a true dependence) but
-every diagonal lane of every window in the batch advances in parallel on
-the VPU — (B, lanes) furthest-reaching updates per step, snake extension as
+device form: the d-loop stays sequential (it is a true dependence) but
+every diagonal lane of every window in the batch advances in parallel — (B, lanes) furthest-reaching updates per step, snake extension as
 chunked vector compares, adaptive band maintenance as masked reductions.
 
 Exactness: identical tie-breaking (`k == min_k || (k != max_k && V[k-1] <
@@ -271,7 +270,7 @@ def align_exact_batch_device(
     max_batch: int = 256,
 ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """DW_banded-exact rows for a batch of windows, computed on the default
-    JAX device (TPU when present).  Byte-identical to myers.align_exact /
+    JAX device.  Byte-identical to myers.align_exact /
     the native myers_align_batch."""
     B = len(qs)
     if B == 0:

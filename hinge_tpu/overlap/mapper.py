@@ -255,10 +255,9 @@ def map_reads_to_targets(
     the whole minimizer pass over identical sequences)."""
     # Experimental device path (HINGE_DEVICE_JOIN=1 only): the whole join
     # chain as XLA programs, records bit-identical to the C path below.
-    # NOT the TPU default — measured r5, the v5e's ~100M elem/s random
-    # gather/scatter rate makes it lose to this C path by ~40x at
-    # production scale (see device_join.device_join_available and
-    # docs/DESIGN.md "r5: overlap-join roofline").
+    # Off by default: it is bound by random gather/scatter, and whether it
+    # beats this C path on the GPU is unmeasured (see
+    # device_join.device_join_available).
     if half_pairs and rs.bases is not None:
         from hinge_tpu.native import get_lib
         from hinge_tpu.overlap import device_join

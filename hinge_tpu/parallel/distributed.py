@@ -1,8 +1,8 @@
 """Multi-host initialization helper.
 
-The reference has no distributed runtime (SURVEY.md §2.3); the TPU design
+The reference has no distributed runtime (SURVEY.md §2.3); this design
 shards overlap records by A-read ranges across hosts exactly like `--mlas`
-parts map to sequential single-host runs.  On a multi-host TPU slice this
+parts map to sequential single-host runs.  On a multi-host cluster this
 module initializes `jax.distributed` and hands each host its read range;
 collectives (psum/all_gather in parallel.sharding) then run globally over
 the ('reads','recs') mesh spanning all hosts' devices.

@@ -51,8 +51,10 @@ def assemble(
     hinge_tpu.utils.log.timings() and are mirrored to <workdir>/log/log.txt
     (the reference's spdlog dual sink, filter.cpp:201-205)."""
     from hinge_tpu.config import Config, nominal_config
+    from hinge_tpu.utils.compile_cache import enable_compile_cache
     from hinge_tpu.utils.log import get_logger, jax_trace, stage_timer
 
+    enable_compile_cache()
     os.makedirs(workdir, exist_ok=True)
     p = os.path.join(workdir, prefix)
     cfg = Config.from_ini(config) if config else nominal_config()

@@ -15,10 +15,9 @@ from __future__ import annotations
 
 from typing import Optional
 
-import networkx as nx
-
 from hinge_tpu.config import Config
 from hinge_tpu.graph import sgraph as S
+from hinge_tpu.graph.digraph import write_graphml
 
 
 def run_clip(
@@ -61,33 +60,33 @@ def run_clip(
         G1 = S.bubble_bursting_sym(G1, 10)
         G1 = S.dead_end_clipping_sym(G1, 5)
 
-    nx.write_graphml(G0, f"{prefix}{suffix}.G0.graphml")
-    nx.write_graphml(G1, f"{prefix}{suffix}.G1.graphml")
+    write_graphml(G0, f"{prefix}{suffix}.G0.graphml")
+    write_graphml(G1, f"{prefix}{suffix}.G1.graphml")
 
     G2 = G1.copy()
     S.loop_resolution(G2, 500, 50, cfg.layout.max_plasmid_length)
-    nx.write_graphml(G2, f"{prefix}{suffix}.G2.graphml")
+    write_graphml(G2, f"{prefix}{suffix}.G2.graphml")
 
     out = {"G0": G0, "G1": G1, "G2": G2}
 
     if write_viz:
         Gs = S.random_condensation_sym(G1, 1000)
         G2s = S.random_condensation_sym(G2, 1000)
-        nx.write_graphml(Gs, f"{prefix}{suffix}.Gs.graphml")
-        nx.write_graphml(G2s, f"{prefix}{suffix}.G2s.graphml")
+        write_graphml(Gs, f"{prefix}{suffix}.Gs.graphml")
+        write_graphml(G2s, f"{prefix}{suffix}.G2s.graphml")
         Gc = S.connect_strands(Gs)
-        nx.write_graphml(Gc, f"{prefix}{suffix}.Gc.graphml")
+        write_graphml(Gc, f"{prefix}{suffix}.Gc.graphml")
         G2c = S.connect_strands(G2s)
-        nx.write_graphml(G2c, f"{prefix}{suffix}.G2c.graphml")
+        write_graphml(G2c, f"{prefix}{suffix}.G2c.graphml")
 
     if cfg.layout.aggressive_pruning:
         G3 = S.y_pruning(G2, 10)
         G3 = S.dead_end_clipping_sym(G3, 10)
-        nx.write_graphml(G3, f"{prefix}{suffix}.G3.graphml")
+        write_graphml(G3, f"{prefix}{suffix}.G3.graphml")
         out["G3"] = G3
         if write_viz:
             G3s = S.random_condensation_sym(G3, 1000)
             G3c = S.connect_strands(G3s)
-            nx.write_graphml(G3s, f"{prefix}{suffix}.G3s.graphml")
-            nx.write_graphml(G3c, f"{prefix}{suffix}.G3c.graphml")
+            write_graphml(G3s, f"{prefix}{suffix}.G3s.graphml")
+            write_graphml(G3c, f"{prefix}{suffix}.G3c.graphml")
     return out

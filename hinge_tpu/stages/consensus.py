@@ -12,7 +12,7 @@ over {A,C,G,T,-} plus a single-insertion track (:162-269):
 * deletion when '-' wins the column.
 
 The vote accumulations are scatter-adds over (position, base) — numpy here,
-with the same layout a TPU one-hot scatter kernel uses.
+with the same layout the device scatter-add kernel (ops/consensus_vote.py) uses.
 """
 
 from __future__ import annotations
@@ -203,8 +203,8 @@ def _native_vote_tallies(flat_a, flat_b, seg_len, pos0, alen, chop=100):
 
 
 def _tallies_dispatch(flat_a, flat_b, seg_len, pos0, alen):
-    """Native C single-pass vote when the toolchain is available (fastest on
-    this rig: the flat rows already live host-side), else numpy; the device
+    """Native C single-pass vote when the toolchain is available (the flat
+    rows already live host-side), else numpy; the device
     scatter-add kernel stays selectable with HINGE_DEVICE_VOTE=1 (all three
     integer-exact; tests/test_consensus_vote.py cross-pins them)."""
     import os
@@ -346,9 +346,9 @@ def run_consensus(
         # pooled column vote, fully segment-vectorized in bounded chunks:
         # (pos, base) pairs of every read at once, then ONE bincount per
         # tally per chunk (the per-read Python loop was 54% of consensus
-        # wall in the host profile).  On a TPU backend the vote runs as a
-        # device scatter-add kernel (ops/consensus_vote.py, bit-identical);
-        # HINGE_DEVICE_VOTE=1/0 forces/disables it.
+        # wall in the host profile).  _tallies_dispatch picks the native C
+        # pass; HINGE_DEVICE_VOTE=1 runs the bit-identical device scatter-add
+        # kernel (ops/consensus_vote.py) instead.
         scores, cov, ins_score, ins_scores = _tallies_dispatch(
             flat_a, flat_b, seg_len, pos0, alen)
 

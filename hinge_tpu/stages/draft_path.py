@@ -21,10 +21,10 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-import networkx as nx
 import numpy as np
 
 from hinge_tpu.data.overlaps import ReadStore
+from hinge_tpu.graph.digraph import DiGraph, write_graphml
 from hinge_tpu.graph.sgraph import rev_node
 
 
@@ -32,7 +32,7 @@ def _vid(vert: str) -> int:
     return int(vert.split("_")[0].lstrip("B"))
 
 
-def merge_nodes(g: nx.DiGraph, in_node: str, out_node: str):
+def merge_nodes(g: DiGraph, in_node: str, out_node: str):
     """(get_draft_path.py:21-51)"""
     weight = str(g.edges[in_node, out_node]["length"])
     if "path" in g.nodes[in_node]:
@@ -59,7 +59,7 @@ def merge_nodes(g: nx.DiGraph, in_node: str, out_node: str):
 
 
 def run_draft_path(
-    in_graph: nx.DiGraph,
+    in_graph: DiGraph,
     read_len: np.ndarray,
     out_edges_list: Optional[str] = None,
     out_graphml: Optional[str] = None,
@@ -327,5 +327,5 @@ def run_draft_path(
             for ln in lines:
                 f.write(ln + "\n")
     if out_graphml is not None:
-        nx.write_graphml(out_graph, out_graphml)
+        write_graphml(out_graph, out_graphml)
     return lines, out_graph

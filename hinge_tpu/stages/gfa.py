@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
-import networkx as nx
+from hinge_tpu.graph.digraph import read_graphml
 
 
 def run_gfa(
@@ -18,7 +18,7 @@ def run_gfa(
     consensus_fasta_path: str,
     out_gfa: Optional[str] = None,
 ) -> List[str]:
-    g = nx.read_graphml(draft_graphml_path)
+    g = read_graphml(draft_graphml_path)
 
     del_contigs = []
     with open(draft_map_path) as f:

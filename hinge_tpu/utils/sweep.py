@@ -268,10 +268,15 @@ def run_sweep(genome_len: int = 400_000, seed: int = 0,
                 f"{pm.get('n50_mine')}" if pm["ok"]
                 else pm.get("error", "differs: "
                             + str(pm.get("first_diff")))))
+    import jax
+
+    dev = jax.devices()[0]
     report = {
         "genome_len": genome_len,
         "seed": seed,
         "date": time.strftime("%Y-%m-%d"),
+        # walls are only meaningful with the device they ran on
+        "device": f"{dev.platform}: {dev.device_kind}",
         "cells": cells,
         "n_ok": sum(1 for c in cells if c["ok"]),
         "n_cells": len(cells),
@@ -308,7 +313,8 @@ def _to_markdown(report: Dict) -> str:
         "path cannot pass this report (cov15 cells sit below the "
         "HINGE_MIN_SUPPORT thresholds and report the count only).",
         "",
-        "| cell | reads | contigs | N50 | longest/genome | assembled/genome | hinged edges | wall |",
+        "| cell | reads | contigs | N50 | longest/genome | assembled/genome | hinged edges "
+        f"| wall ({report.get('device', 'device not recorded')}) |",
         "|---|---|---|---|---|---|---|---|",
     ]
     for c in report["cells"]:
@@ -316,7 +322,8 @@ def _to_markdown(report: Dict) -> str:
             lines.append(
                 f"| {c['cell']} | {c['n_reads']} | {c['n_contigs']} | "
                 f"{c['n50']} | {c['longest_frac']} | {c['assembled_frac']} | "
-                f"{c.get('hinged_edges', '—')} | {c['wall_s']}s |")
+                f"{c.get('hinged_edges', '—')} | "
+                f"{str(c['wall_s']) + 's' if 'wall_s' in c else 'not measured'} |")
         else:
             lines.append(
                 f"| {c['cell']} | — | — | — | — | — | — | {c['error']} |")

@@ -10,7 +10,7 @@ import pstats
 import sys
 import time
 
-# host profiler: pin the numpy vote unless --device asks for the TPU path
+# host profiler: pin the numpy vote unless --device asks for the device kernel
 if "--device" not in sys.argv:
     os.environ.setdefault("HINGE_DEVICE_VOTE", "0")
 

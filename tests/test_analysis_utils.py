@@ -5,10 +5,10 @@ import os
 import subprocess
 import sys
 
-import networkx as nx
 import numpy as np
 import pytest
 
+from hinge_tpu.graph.digraph import DiGraph
 from hinge_tpu.graph.analysis import (
     comp_n50, longest_path, n50_from_fasta, unitigs, write_unitig_edges,
 )
@@ -41,7 +41,7 @@ def test_comp_n50_matches_reference_oracle():
 
 
 def test_unitigs_paths_and_cycle():
-    g = nx.DiGraph()
+    g = DiGraph()
     # chain a->b->c->d with a branch at c, plus an isolated 3-cycle
     g.add_edges_from([("a", "b"), ("b", "c"), ("c", "d"), ("c", "e")])
     g.add_edges_from([("x", "y"), ("y", "z"), ("z", "x")])
@@ -55,7 +55,7 @@ def test_unitigs_paths_and_cycle():
 
 
 def test_write_unitig_edges(tmp_path):
-    g = nx.DiGraph()
+    g = DiGraph()
     attrs = dict(read_a_start_raw=0, read_a_end_raw=100,
                  read_b_start_raw=50, read_b_end_raw=150)
     g.add_edge("1_0", "2_1", **attrs)
@@ -71,7 +71,7 @@ def test_write_unitig_edges(tmp_path):
 
 
 def test_longest_path_dag():
-    g = nx.DiGraph()
+    g = DiGraph()
     g.add_edges_from([("a", "b"), ("b", "c"), ("c", "d"), ("a", "d")])
     assert longest_path(g) == ["a", "b", "c", "d"]
 

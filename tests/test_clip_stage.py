@@ -10,6 +10,7 @@ import pytest
 
 from hinge_tpu.config import nominal_config
 from hinge_tpu.graph import sgraph as S
+from hinge_tpu.graph.digraph import DiGraph, weakly_connected_components
 
 
 def _sym_add(G, u, v, **attrs):
@@ -26,7 +27,7 @@ def _sym_add(G, u, v, **attrs):
 
 
 def _cycle_graph(n):
-    G = nx.DiGraph()
+    G = DiGraph()
     for i in range(n):
         _sym_add(G, i, (i + 1) % n)
     return G
@@ -97,7 +98,7 @@ def test_bubble_bursting():
 def test_loop_resolution_duplicates_repeat():
     # st -> loop -> repeat -> back to st; plasmid shorter than max length is
     # left alone; longer gets B-duplicated
-    G = nx.DiGraph()
+    G = DiGraph()
     n = 12
     for i in range(n):
         _sym_add(G, i, (i + 1) % n, read_a_match_start=0, read_b_match_start=100000)
@@ -160,7 +161,7 @@ def test_clip_end_to_end(tmp_path):
     degs_in = [G2.in_degree(x) for x in G2.nodes()]
     degs_out = [G2.out_degree(x) for x in G2.nodes()]
     assert max(degs_in) == 1 and max(degs_out) == 1, (max(degs_in), max(degs_out))
-    comps = list(nx.weakly_connected_components(G2))
+    comps = list(weakly_connected_components(G2))
     assert len(comps) == 2  # forward + reverse strand cycles
     import os
     assert os.path.exists(str(tmp_path / "eco1.G2.graphml"))

@@ -6,7 +6,7 @@ trace-byte-for-trace-byte: same minimizer set, same band selection and
 tie-breaks, same greedy sub_gap thinning, same integer-exact trace
 interpolation.  These tests force the device path on the CPU backend
 (HINGE_DEVICE_JOIN=1) — XLA integer semantics are identical across
-backends, so CPU parity here implies TPU parity."""
+backends, so CPU parity here implies GPU parity."""
 
 import numpy as np
 import pytest

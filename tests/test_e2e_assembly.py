@@ -5,7 +5,6 @@ genome (a rotation of it, possibly reverse-complemented)."""
 
 import os
 
-import networkx as nx
 import numpy as np
 import pytest
 

@@ -2,11 +2,11 @@
 
 import json
 
-import networkx as nx
 import numpy as np
 
 from hinge_tpu.config import nominal_config
 from hinge_tpu.data.overlaps import INT, ReadStore
+from hinge_tpu.graph.digraph import DiGraph
 from hinge_tpu.graph.groundtruth import add_groundtruth, run_mapping
 
 
@@ -32,7 +32,7 @@ def test_run_mapping_and_annotation(small_sim, tmp_path):
     assert loaded[any_read][0][2] == 0  # chr index
 
     # annotate a small graph
-    g = nx.DiGraph()
+    g = DiGraph()
     ids = sorted(int(k) for k in loaded.keys())[:4]
     for a, b in zip(ids, ids[1:]):
         g.add_edge(f"{a}_0", f"{b}_0")

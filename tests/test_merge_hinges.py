@@ -7,6 +7,7 @@ import networkx as nx
 import numpy as np
 import pytest
 
+from hinge_tpu.graph.digraph import DiGraph
 from hinge_tpu.graph.merge_hinges import (
     build_hinge_mapping,
     build_merged_graph,
@@ -26,7 +27,7 @@ def _chain(g, nodes):
 
 
 def test_dead_end_clipping_removes_short_spur():
-    g = nx.DiGraph()
+    g = DiGraph()
     _chain(g, ["a", "b", "c", "d", "e", "f"])  # backbone
     g.add_edge("x", "c")  # 1-node in-spur
     _chain(g, ["d", "y1", "y2"])  # 2-node out-spur
@@ -39,7 +40,7 @@ def test_dead_end_clipping_removes_short_spur():
 
 
 def test_dead_end_clipping_keeps_long_spur():
-    g = nx.DiGraph()
+    g = DiGraph()
     _chain(g, ["a", "b", "c", "d", "e", "f", "g2", "h2"])
     _chain(g, ["s1", "s2", "s3", "s4", "c"])
     h = dead_end_clipping(g, 3)
@@ -49,7 +50,7 @@ def test_dead_end_clipping_keeps_long_spur():
 def _z_graph():
     # backbone a->b->c->d->e (too long to clip at threshold 1);
     # z-edge b->z into z which also takes w->z: classic Z at both ends
-    g = nx.DiGraph()
+    g = DiGraph()
     _chain(g, ["a", "b", "c", "d", "e"])
     g.add_edge("b", "z")
     g.add_edge("w", "z")
@@ -71,7 +72,7 @@ def test_z_clipping_respects_hinges():
 
 
 def test_merge_a_to_b_redirects_edges():
-    g = nx.DiGraph()
+    g = DiGraph()
     g.add_edge("p", "a")
     g.add_edge("a", "s")
     g.add_edge("x", "b")
@@ -82,14 +83,14 @@ def test_merge_a_to_b_redirects_edges():
 
 
 def test_random_condensation_shrinks_clean_paths():
-    g = nx.DiGraph()
+    g = DiGraph()
     _chain(g, [str(i) for i in range(40)])
     for u, v in g.edges():
         g.edges[u, v]["false_positive"] = 0
     out = random_condensation(g, 10, seed=3)
     assert out.number_of_nodes() <= 12
     # false positives block merging
-    g2 = nx.DiGraph()
+    g2 = DiGraph()
     _chain(g2, [str(i) for i in range(20)])
     for u, v in g2.edges():
         g2.edges[u, v]["false_positive"] = 1

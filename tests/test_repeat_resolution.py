@@ -9,7 +9,6 @@ those hinges — HINGE's core mechanism (README.md:14-47 of the reference).
 
 import collections
 
-import networkx as nx
 import numpy as np
 import pytest
 

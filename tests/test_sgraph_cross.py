@@ -3,7 +3,7 @@ independent second transcription (tests/sgraph_oracle2.py).
 
 The reference pruning scripts are Python-2-only, so real script diffs are
 impossible offline; instead every pruning op runs on randomized
-strand-symmetric graphs through BOTH transcriptions — networkx-based
+strand-symmetric graphs through BOTH transcriptions — graph.digraph-based
 (production) and dict-based (oracle) — and must produce identical node
 lists, edge sets, z annotations, and (where an op legitimately crashes on
 mirror-overlapping paths, as the reference does) identical crash behavior.
@@ -11,19 +11,19 @@ mirror-overlapping paths, as the reference does) identical crash behavior.
 
 import random
 
-import networkx as nx
 import numpy as np
 import pytest
 
 import tests.sgraph_oracle2 as O
 from hinge_tpu.graph import sgraph as S
+from hinge_tpu.graph.digraph import DiGraph, GraphError
 
 
 def _random_sym_graph(rng: random.Random, n_reads=14, n_edges=26,
                       with_attrs=True):
     """Random mirror-closed digraph over '<i>_<s>' nodes, built identically
-    into an nx.DiGraph and an oracle ODG (same insertion order)."""
-    G = nx.DiGraph()
+    into a DiGraph and an oracle ODG (same insertion order)."""
+    G = DiGraph()
     g2 = O.ODG()
     edges = []
     for _ in range(n_edges):
@@ -57,7 +57,7 @@ def _random_sym_graph(rng: random.Random, n_reads=14, n_edges=26,
     return G, g2
 
 
-def _assert_same(G: nx.DiGraph, g2: O.ODG):
+def _assert_same(G: DiGraph, g2: O.ODG):
     assert list(G.nodes()) == g2.node_list()
     assert set(G.edges()) == g2.edge_set()
 
@@ -68,7 +68,7 @@ def _run_both(f_nx, f_o2):
     try:
         a = f_nx()
         ok1 = True
-    except (nx.NetworkXError, KeyError):
+    except (GraphError, KeyError):
         ok1 = False
     try:
         b = f_o2()
@@ -175,7 +175,7 @@ def test_loop_resolution_plasmid_cross():
             add_edge(u, v, kw)
             add_edge(S.rev_node(v), S.rev_node(u), kw)
 
-    G = nx.DiGraph()
+    G = DiGraph()
     build(lambda u, v, kw: G.add_edge(u, v, **kw))
     g2 = O.ODG()
     build(lambda u, v, kw: g2.add_edge(u, v, **kw))

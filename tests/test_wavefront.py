@@ -1,7 +1,7 @@
 """Device wavefront aligner (ops/wavefront.py) vs the scalar DW_banded
 oracle (ops/myers.align_exact): byte-identical rows across fuzz + edge
-cases.  Runs on the CPU backend in CI; the same jitted code is the TPU
-path."""
+cases.  Runs on the CPU backend in CI; the same jitted code runs on the
+GPU."""
 
 import numpy as np
 import pytest
